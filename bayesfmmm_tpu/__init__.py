@@ -1,11 +1,11 @@
-"""bayesfmmm-tpu: TPU-native Bayesian mixed membership models.
+"""bayesfmmm-tpu: accelerator-native Bayesian mixed membership models.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
+A from-scratch JAX/XLA framework with the capabilities of the
 BayesFMMM model family: functional, high-dimensional (tensor-domain), and
 multivariate mixed membership models with covariate-adjusted means and
 covariances, fit by vectorized Gibbs-within-Metropolis MCMC (with tempered
 transitions, replica-exchange parallel tempering, SMC), whole-model HMC,
-and ADVI — chain-parallel over TPU device meshes.
+and ADVI — chain-parallel over device meshes.
 
 Quick start::
 

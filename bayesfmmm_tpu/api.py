@@ -7,7 +7,7 @@ functions dispatching on the data container's family, with the same
 hyperparameter names/defaults (config.Priors) and validation conditions
 (:198-286).
 
-Key TPU-native semantic upgrade: the reference's ``n_try`` restarts run
+Key semantic upgrade: the reference's ``n_try`` restarts run
 *serially* (:302-325); here all restarts are a vmapped chain batch executed
 in one compiled program (and shardable over the mesh chains axis) — the
 best chain is still selected by mean log-likelihood of the last 100 draws
@@ -714,7 +714,7 @@ def fit_hmc(data, *, K, M, covariate_cov=False, n_warmup=500, n_samples=500,
     gradient-based production path (SURVEY.md §7 primary path;
     models/logjoint.py + samplers/hmc.py, samplers/nuts.py).
 
-    method: 'hmc' (jittered fixed-length trajectories, the TPU default —
+    method: 'hmc' (jittered fixed-length trajectories, the default —
     one static-shape program) or 'nuts' (iterative No-U-Turn with
     ``max_depth``; data-dependent while_loops, adaptive trajectory length).
     init: 'spectral' (archetypal warm start mapped through from_state),

@@ -1,6 +1,6 @@
 """B-spline basis construction and smoothness penalties (host-side, NumPy f64).
 
-TPU-native rebuild of the reference basis layer:
+Rebuild of the reference basis layer:
   * 1-D B-spline design matrices  — reference builds these per function with
     ``splines2::BSpline(...).basis(true)`` (BFMMM.h:1388-1400).
   * Tensor-product B-spline bases for multi-dimensional domains — reference

@@ -6,72 +6,45 @@ persistence (BFMMM.h:205-271) and warm-starting from point estimates
 checkpoint captures the full sampler state pytree *and* the PRNG key, so a
 resumed chain continues the exact same trajectory.
 
-Uses Orbax when available (sharded, async-capable, multi-host-safe);
-falls back to a plain npz for minimal environments.
+The format is one NumPy ``.npz`` archive: one array per GibbsState field
+(``state__<field>``), the raw key data and the iteration count.
 """
 
 from __future__ import annotations
 
-import os
+import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 
 from bayesfmmm_tpu.models.state import GibbsState
 
-_FIELDS = [f.name for f in GibbsState.__dataclass_fields__.values()]
+_FIELDS = [f.name for f in dataclasses.fields(GibbsState)]
 
 
-def save_checkpoint(path: str, state, key, iteration: int = 0,
-                    extra: dict | None = None) -> None:
+def _npz_path(path: str) -> str:
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def save_checkpoint(path: str, state, key, iteration: int = 0) -> None:
     """Save (state, key, iteration) — exact-resume contract.
 
-    A path ending in ``.npz`` requests the plain-npz format explicitly;
-    any other path tries Orbax (which writes a directory) first and falls
-    back to ``path + '.npz'``."""
-    try:
-        if path.endswith(".npz"):
-            raise ImportError("npz format requested")
-        import orbax.checkpoint as ocp
-        path = os.path.abspath(path)
-        ckpt = {
-            "state": {f: getattr(state, f) for f in _FIELDS},
-            "key": jax.random.key_data(key) if jax.dtypes.issubdtype(
-                key.dtype, jax.dtypes.prng_key) else key,
-            "iteration": np.asarray(iteration),
-        }
-        if extra:
-            ckpt["extra"] = extra
-        ckptr = ocp.PyTreeCheckpointer()
-        ckptr.save(path, ckpt, force=True)
-    except (ImportError, Exception):
-        arrs = {f"state__{f}": np.asarray(getattr(state, f)) for f in _FIELDS}
-        kd = key
-        try:
-            kd = jax.random.key_data(key)
-        except Exception:
-            pass
-        arrs["key"] = np.asarray(kd)
-        arrs["iteration"] = np.asarray(iteration)
-        np.savez(path if path.endswith(".npz") else path + ".npz", **arrs)
+    Writes ``path`` if it ends in ``.npz`` and ``path + '.npz'`` otherwise.
+    ``key`` may be a typed PRNG key array or raw uint32 key data."""
+    if jax.dtypes.issubdtype(key.dtype, jax.dtypes.prng_key):
+        key = jax.random.key_data(key)
+    arrs = {f"state__{f}": np.asarray(getattr(state, f)) for f in _FIELDS}
+    arrs["key"] = np.asarray(key)
+    arrs["iteration"] = np.asarray(iteration)
+    np.savez(_npz_path(path), **arrs)
 
 
 def load_checkpoint(path: str, dtype=None):
-    """Returns (state, key, iteration)."""
-    import jax.numpy as jnp
+    """Returns (state, key, iteration); ``key`` is a typed PRNG key array."""
     dtype = dtype or jnp.float32
-    npz = path if path.endswith(".npz") else path + ".npz"
-    # a directory named *.npz is an Orbax checkpoint, not an npz archive
-    if os.path.isfile(npz):
-        z = np.load(npz)
-        fields = {f: jnp.asarray(z[f"state__{f}"], dtype) for f in _FIELDS}
-        state = GibbsState(**fields)
+    with np.load(_npz_path(path)) as z:
+        state = GibbsState(**{f: jnp.asarray(z[f"state__{f}"], dtype)
+                              for f in _FIELDS})
         key = jax.random.wrap_key_data(jnp.asarray(z["key"]))
         return state, key, int(z["iteration"])
-    import orbax.checkpoint as ocp
-    ckptr = ocp.PyTreeCheckpointer()
-    ckpt = ckptr.restore(os.path.abspath(path))
-    fields = {f: jnp.asarray(ckpt["state"][f], dtype) for f in _FIELDS}
-    state = GibbsState(**fields)
-    key = jax.random.wrap_key_data(jnp.asarray(ckpt["key"]))
-    return state, key, int(ckpt["iteration"])

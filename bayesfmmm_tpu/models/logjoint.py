@@ -1,6 +1,6 @@
 """Whole-model log-joint on unconstrained parameters (gradient-based path).
 
-The TPU-first alternative to per-parameter Gibbs (SURVEY.md §7 architecture
+The gradient-based alternative to per-parameter Gibbs (SURVEY.md §7 architecture
 stance): one vectorized log-joint over unconstrained parameters, sampled by
 HMC with chain-parallel vmap.  Transforms:
 
@@ -23,14 +23,14 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 from jax.scipy.special import gammaln
 
 from bayesfmmm_tpu.models.state import GibbsState
 from bayesfmmm_tpu.ops.distributions import log_multi_beta
+from bayesfmmm_tpu.utils.pytree import pytree_dataclass
 
 
-@struct.dataclass
+@pytree_dataclass
 class UncState:
     """Unconstrained parameter pytree (one chain)."""
     z_raw: jax.Array       # (N, K-1)
@@ -175,7 +175,8 @@ def make_log_joint(data, hp, c, pen_rank=None, temperature=1.0):
         lp += -hp.b * state.alpha3 + unc.log_alpha3
 
         # --- nu_k | tau_k ~ N(0, (tau_k pen)^-1) (UpdateNu.h:66) ---
-        quad = jnp.einsum("kp,pq,kq->k", state.nu, data.pen, state.nu)
+        quad = jnp.einsum("kp,pq,kq->k", state.nu, data.pen, state.nu,
+                          precision="highest")
         lp += jnp.sum(0.5 * pen_rank * unc.log_tau - 0.5 * state.tau * quad)
 
         # --- tau ~ Gamma(alpha_nu, beta_nu) (UpdateTau.h:18-36) ---
@@ -214,7 +215,7 @@ def make_log_joint(data, hp, c, pen_rank=None, temperature=1.0):
         if D > 0:
             # eta | tau_eta (UpdateEta.h:84)
             quad_e = jnp.einsum("kpd,pq,kqd->kd", state.eta, data.pen,
-                                state.eta)
+                                state.eta, precision="highest")
             lp += jnp.sum(0.5 * pen_rank * unc.log_tau_eta
                           - 0.5 * state.tau_eta * quad_e)
             lp += jnp.sum(hp.alpha_eta * unc.log_tau_eta

@@ -1,12 +1,12 @@
 """Model data and sampler state pytrees.
 
-TPU-native redesign of the reference's per-parameter trace cubes
+Redesign of the reference's per-parameter trace cubes
 (BFMMM.h:1414-1449): instead of mutable Armadillo cubes indexed by iteration,
 the sampler state is an immutable pytree holding the *current* draw of every
 parameter; traces are produced functionally by ``lax.scan`` stacking.
 
 Ragged functional data (``arma::field<arma::vec>`` in the reference) becomes
-padded dense tensors + a mask — the TPU-friendly static-shape representation.
+padded dense tensors + a mask — the static-shape representation.
 All basis products are precomputed once on the host (the reference rebuilds
 splines in every driver, BFMMM.h:1388-1400).
 
@@ -20,18 +20,15 @@ and covariate adjustment is D > 0 (eta/xi terms vanish identically at D=0).
 
 from __future__ import annotations
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
-
 from bayesfmmm_tpu import basis as basis_mod
 from bayesfmmm_tpu.config import ModelConfig
+from bayesfmmm_tpu.utils.pytree import pytree_dataclass, static_field
 
 
-@struct.dataclass
+@pytree_dataclass
 class ModelData:
     """Device-resident observation data + precomputed design constants.
 
@@ -45,12 +42,12 @@ class ModelData:
     pen: jax.Array        # (P, P) smoothness penalty (RW1 / graph / identity)
     u: jax.Array          # (N, P) basis-projected data  B_i' y_i
     yy: jax.Array         # (N,)   squared data norms  ||y_i||^2
-    identity_basis: bool = struct.field(pytree_node=False, default=False)
+    identity_basis: bool = static_field(False)
     # Model family carried with the data so every fitting path (Gibbs, HMC,
     # ADVI) builds the right ModelConfig without the caller restating it —
     # in particular the multivariate tau reciprocal at trace export
     # (UpdateTau.h:47-63) keys off this.
-    family: str = struct.field(pytree_node=False, default="functional")
+    family: str = static_field("functional")
 
     @property
     def N(self):
@@ -73,7 +70,7 @@ class ModelData:
         return jnp.sum(self.mask)
 
 
-@struct.dataclass
+@pytree_dataclass
 class GibbsState:
     """Current draw of every model parameter (one chain).
 

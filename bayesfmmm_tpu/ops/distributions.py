@@ -1,6 +1,6 @@
 """Sampling and density primitives for the Gibbs kernels.
 
-TPU-native replacements for the reference's R-RNG-backed helpers
+Replacements for the reference's R-RNG-backed helpers
 (Distributions.h, RcppDist truncnorm.h, arma::mvnrnd):
 
   * ``rdirichlet``      — gamma-normalize with the reference's floor-at-10
@@ -11,7 +11,7 @@ TPU-native replacements for the reference's R-RNG-backed helpers
   * ``mvn_from_precision`` — draw from N(P^{-1} b, P^{-1}) given a precision
                           matrix, via jittered Cholesky.  The reference uses
                           ``arma::pinv`` + symmetrization (UpdateNu.h:67-68)
-                          to survive singular precisions; on TPU a scaled
+                          to survive singular precisions; here a scaled
                           diagonal jitter achieves the same robustness with
                           O(P^3/3) triangular work and no SVD.
 

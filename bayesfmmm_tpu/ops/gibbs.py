@@ -1,6 +1,6 @@
 """Conditional updaters (Gibbs/MH kernels) for the mixed membership model.
 
-TPU-native re-derivation of the reference's L2 kernel layer
+Vectorized re-derivation of the reference's L2 kernel layer
 (inst/include/BayesFMMM/Update*.h, ~80 C++ functions).  Design differences:
 
   * Every updater is a pure function ``(key, state, ...) -> state`` — no
@@ -107,7 +107,7 @@ def _weighted_gram(data, W):
 # Phi or xi at once): above this joint dimension (B*P) the memory/FLOPs of
 # the dense joint precision outgrow its benefit and the kernels fall back to
 # the sequential blocked scan.  4096 -> a 4096^2 f32 precision (64 MB) and a
-# ~2e10-FLOP Cholesky, well within one sweep's budget on a TPU core.
+# ~2e10-FLOP Cholesky per chain.
 _JOINT_MAX_DIM = 4096
 
 
@@ -147,10 +147,8 @@ def _joint_blocked_draw(key, data, s, W, prior_diag, blocks_cur, w):
     bvec = s * jnp.einsum("bn,np->bp", W, resid, **_HI).reshape(B * P)
     A = (s * A).reshape(B * P, B * P) \
         + jnp.diag(prior_diag.reshape(B * P))
-    # fused factor+solve: XLA's stock batched cholesky/triangular_solve at
-    # D~96 are the sweep's latency bottleneck (ops/linalg.py docstring);
-    # on TPU the chain-vmapped call routes to the Pallas batch-minor kernel
-    new, _ = mvn_from_precision_fused(key, A, bvec)
+    with jax.named_scope("joint_precision_draw"):
+        new, _ = mvn_from_precision_fused(key, A, bvec)
     blocks_new = new.reshape(B, P)
     w_new = w_excl + jnp.einsum("bn,bp->np", W, blocks_new, **_HI)
     return blocks_new, w_new
@@ -597,7 +595,8 @@ def update_eta(key, state, data, hp, cache: SweepCache, beta=1.0):
         return state, cache
 
     s = beta / state.sigma2
-    Z2X2 = jnp.einsum("nd,nj->djn", data.X * data.X, state.Z * state.Z)
+    Z2X2 = jnp.einsum("nd,nj->djn", data.X * data.X, state.Z * state.Z,
+                      **_HI)
     prec = s * _weighted_gram(data, Z2X2) \
         + state.tau_eta.T[:, :, None, None] * data.pen   # (D, K, P, P)
     Lc = chol_precision(prec.reshape(D * K, prec.shape[-1], prec.shape[-1]))
@@ -636,7 +635,8 @@ def update_phi(key, state, data, hp, cache: SweepCache, beta=1.0):
     prior_diag = tilde_tau[:, :, None] * state.gamma.transpose(0, 2, 1)
 
     if K * M * P <= _JOINT_MAX_DIM:
-        W = jnp.einsum("nj,nm->jmn", state.Z, state.chi).reshape(K * M, -1)
+        W = jnp.einsum("nj,nm->jmn", state.Z, state.chi,
+                       **_HI).reshape(K * M, -1)
         blocks = state.Phi.transpose(0, 2, 1).reshape(K * M, P)
         new, w = _joint_blocked_draw(key, data, s, W,
                                      prior_diag.reshape(K * M, P),
@@ -644,7 +644,8 @@ def update_phi(key, state, data, hp, cache: SweepCache, beta=1.0):
         Phi = new.reshape(K, M, P).transpose(0, 2, 1)
         return state.replace(Phi=Phi), cache.replace(w=w)
 
-    wsq = jnp.einsum("nj,nm->jmn", state.Z * state.Z, state.chi * state.chi)
+    wsq = jnp.einsum("nj,nm->jmn", state.Z * state.Z, state.chi * state.chi,
+                     **_HI)
     prec = s * _weighted_gram(data, wsq) \
         + prior_diag[..., :, None] * jnp.eye(P, dtype=state.Phi.dtype)
     Lc = chol_precision(prec.reshape(K * M, P, P))
@@ -687,7 +688,7 @@ def update_xi(key, state, data, hp, cache: SweepCache, beta=1.0):
         # One joint draw of ALL K*M*D blocks — this was the sweep's serial
         # bottleneck (round-1 VERDICT: config 4's K*M*D fori_loop).
         W = jnp.einsum("nj,nm,nd->jmdn", state.Z, state.chi,
-                       data.X).reshape(K * M * D, -1)
+                       data.X, **_HI).reshape(K * M * D, -1)
         blocks = state.xi.transpose(0, 3, 2, 1).reshape(K * M * D, P)
         new, w = _joint_blocked_draw(key, data, s, W,
                                      prior_diag.reshape(K * M * D, P),
@@ -696,7 +697,7 @@ def update_xi(key, state, data, hp, cache: SweepCache, beta=1.0):
         return state.replace(xi=xi), cache.replace(w=w)
 
     wsq = jnp.einsum("nj,nm,nd->jmdn", state.Z * state.Z,
-                     state.chi * state.chi, data.X * data.X)
+                     state.chi * state.chi, data.X * data.X, **_HI)
     prec = s * _weighted_gram(data, wsq) \
         + prior_diag[..., :, None] * jnp.eye(P, dtype=state.xi.dtype)
     Lc = chol_precision(prec.reshape(K * M * D, P, P))
@@ -1066,7 +1067,7 @@ def _mix_features(state, data, ea, eb, eps):
         shape = (-1,) + (1,) * (x.ndim - 1)
         return x + ea.reshape(shape) * (c * (xb - xa))[None]
 
-    za = state.Z @ ea                                    # (N,)
+    za = jnp.dot(state.Z, ea, **_HI)                     # (N,)
     Z = state.Z + cp * za[:, None] * (eb - ea)[None, :]
     new = dict(Z=Z, nu=rowmap(state.nu), Phi=rowmap(state.Phi))
     if data.D > 0:
@@ -1099,7 +1100,7 @@ def _rotate_eigen(state, data, m1, m2, theta):
     R = (jnp.eye(M, dtype=dt)
          + (c - 1.0) * (jnp.outer(e1, e1) + jnp.outer(e2, e2))
          + s * (jnp.outer(e2, e1) - jnp.outer(e1, e2)))
-    new = dict(chi=state.chi @ R,
+    new = dict(chi=jnp.dot(state.chi, R, **_HI),
                Phi=jnp.einsum("kpm,ml->kpl", state.Phi, R, **_HI))
     if data.D > 0:
         new["xi"] = jnp.einsum("kpdm,ml->kpdl", state.xi, R, **_HI)

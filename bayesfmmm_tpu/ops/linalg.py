@@ -1,46 +1,31 @@
-"""Latency-tuned linear algebra for the Gibbs sweep's hot path.
+"""Linear algebra for the Gibbs sweep's hot path.
 
 Inside a `lax.scan` sweep the op graph is latency-serialized (iteration
-i+1 depends on i), so XLA's stock lowerings of small/batched factorizations
-become the sweep's critical path (measured, benchmarks/kernel_breakdown.py
-+ the micro-probes recorded in BENCH_SUITE.md round-4 section):
-
-  * `triangular_solve` on (chains, D, D) with D ~ 96 lowers to ~D
-    sequential row steps at a ~5-10 us/step latency floor -> ~1.2 ms per
-    sweep for the three solves of one joint blocked draw.
-  * batched tiny Cholesky on (chains*N, M, M) with M ~ 4 is catastrophic
-    (~11 ms per sweep): every intermediate op on a (..., 4, 4) operand is
-    padded to (8, 128) TPU tiles — a ~256x memory blowup per step.
-
-Two replacements, both exact (same arithmetic, reordered):
+i+1 depends on i), so the number of sequential steps in a factorization or
+substitution, not its FLOPs, sets its cost.  Two reformulations, both exact
+(same arithmetic, reordered):
 
   * `blocked_tri_solves(L, b, z)` — block forward/backward substitution
     with the diagonal blocks inverted upfront by ONE batched
-    triangular-solve call (16-step latency, amortized over all blocks);
-    the substitution itself is ~2*NB sequential steps of batched matmuls.
-    Measured 3.1x faster than three stock solves at D=96 (402 vs 1238 us
-    per latency-chained iteration at 256 chains).
-  * `small_chol` / `small_solve_lower` / `small_solve_upper` — entrywise
-    UNROLLED Cholesky/substitution for static M <= 8, holding each matrix
-    entry as its own (batch...)-shaped array so every op runs over the
-    large batch dims with no tile padding.  Measured ~40x faster than the
-    stock batched path at M=4, batch 25600.
+    triangular-solve call, then ~2*NB sequential steps of batched matmuls
+    instead of ~D row steps.
+  * `small_chol` / `small_solve_lower` / `small_solve_upper_t` and the
+    `*_entries` forms — entrywise UNROLLED Cholesky/substitution for static
+    M <= 8, holding each matrix entry as its own (batch...)-shaped array so
+    every op runs over the large batch dims.
 
 The joint blocked draws (update_phi/update_xi) route through
-`mvn_from_precision_fused`, whose chain-vmapped TPU path is the Pallas
-batch-minor fused factor+solve kernel and whose fallback is
-`blocked_tri_solves`; the M-space kernels (update_chi_joint, update_z_chi)
-use the small_* unrolled forms.  `blocked_cholesky` /
-`mvn_from_chol_blocked` / `BLOCKED_MIN_DIM` are kept as benchmark/test
-references for the blocked substitution path (benchmarks/
+`mvn_from_precision_fused` -> `precision_draw_pair`: XLA's batched
+Cholesky followed by `blocked_tri_solves`.  The M-space kernels
+(update_chi_joint, update_z_chi) use the small_* unrolled forms.
+`blocked_cholesky` / `mvn_from_chol_blocked` / `BLOCKED_MIN_DIM` are kept
+as benchmark/test references for the blocked path (benchmarks/
 kernel_breakdown.py, tests/test_linalg.py) — no production kernel calls
-them directly.  Exactness is covered by the kernel recovery tests and the
-Geweke joint-invariance suites, which run both code paths.
+them directly.  Exactness is covered by tests/test_linalg.py, the kernel
+recovery tests and the Geweke joint-invariance suites.
 """
 
 from __future__ import annotations
-
-import os
 
 import jax
 import jax.numpy as jnp
@@ -77,7 +62,7 @@ def blocked_tri_solves(L, b, z, *, block=None):
     static dimension D = NB*BS.  The NB diagonal blocks are inverted with
     one batched triangular_solve (latency ~BS steps, amortized), then
     forward/backward substitution runs in NB sequential steps of batched
-    (..., BS, BS) matmuls — MXU-friendly and ~D/NB times fewer serial ops
+    (..., BS, BS) matmuls — ~D/NB times fewer serial ops
     than the stock row-by-row lowering.
     """
     D = L.shape[-1]
@@ -126,13 +111,10 @@ def blocked_tri_solves(L, b, z, *, block=None):
 def blocked_cholesky(A, *, block=None):
     """Left-looking blocked Cholesky of SPD (..., D, D) for static D.
 
-    XLA's stock TPU lowering is unblocked: each of the D steps rewrites the
-    full (batch, D, D) tensor, ~D full-tensor HBM round-trips per call
-    (measured 2.97 ms per latency-chained call at D=96, batch 256 — the
-    single most expensive op of the production sweep).  The blocked form
-    does ~4 ops per block row (two einsum accumulations, one BS-dim stock
+    ~4 ops per block row (two einsum accumulations, one BS-dim stock
     Cholesky, one batched BS-dim triangular panel solve), touching O(D*BS)
-    rows per step instead of O(D^2).  Measured ~5x faster at D=96.
+    entries per step instead of rewriting the full (batch, D, D) tensor
+    each of D steps.
     """
     D = A.shape[-1]
     BS = block or _pick_block(D)
@@ -246,81 +228,16 @@ def small_solve_upper_t(L, b):
     return jnp.stack(x, axis=-1)
 
 
-# ---------------------------------------------------------------------------
-# Fused precision draw — routes the chain-batched joint blocked draw to the
-# Pallas batch-minor Cholesky+solve kernel (ops/pallas_kernels.py
-# chol_solve_batch_minor) when the batch is visible.  Measured: XLA's stock
-# batched cholesky at D=96 costs 2.97 ms per latency-chained sweep at 256
-# chains (60% of the sweep); the fused kernel runs the whole
-# factor-and-solve pipeline in one launch.
-# ---------------------------------------------------------------------------
-
-
-def _pallas_chol_ok(D, dtype):
-    # VMEM bound: the kernel holds input block + scratch = 2*D^2*CB*4B per
-    # core; at D=128 that is ~16.8MB, over the ~16MB budget (advisor
-    # round-4) — cap at 112 so oversize D falls back to the blocked XLA
-    # path instead of failing Mosaic compilation.  D > 112 routes to the
-    # tiled two-level path (precision_draw_pair_tiled) where applicable.
-    return (os.environ.get("BFMMM_PALLAS_CHOL", "1") == "1"
-            and jax.default_backend() == "tpu"
-            and dtype == jnp.float32 and D % 8 == 0 and D <= 112)
-
-
-@jax.custom_batching.custom_vmap
 def precision_draw_pair(A, b, z):
-    """(mean, noise) with mean = A^{-1} b, noise = chol(A)^{-T} z.
-
-    Unbatched primal: stock Cholesky + blocked substitution.  Under vmap
-    (the chain axis), the batching rule below reshapes to batch-minor
-    layout and calls the fused Pallas kernel on TPU."""
+    """(mean, noise) with mean = A^{-1} b, noise = chol(A)^{-T} z: XLA's
+    (batched) Cholesky followed by the blocked substitution."""
     L = jnp.linalg.cholesky(A)
     return blocked_tri_solves(L, b, z)
 
 
-@precision_draw_pair.def_vmap
-def _precision_draw_pair_vmap(axis_size, in_batched, A, b, z):
-    if not in_batched[0]:
-        A = jnp.broadcast_to(A, (axis_size,) + A.shape)
-    if not in_batched[1]:
-        b = jnp.broadcast_to(b, (axis_size,) + b.shape)
-    if not in_batched[2]:
-        z = jnp.broadcast_to(z, (axis_size,) + z.shape)
-    D = A.shape[-1]
-    if A.ndim == 3 and _pallas_chol_ok(D, A.dtype):
-        from bayesfmmm_tpu.ops import pallas_kernels as pk
-        C = A.shape[0]
-        CB = pk._CHOL_CB
-        Cp = -(-C // CB) * CB
-        A_T = jnp.moveaxis(A, 0, -1)
-        b_T = jnp.moveaxis(b, 0, -1)
-        z_T = jnp.moveaxis(z, 0, -1)
-        if Cp != C:
-            pad_eye = jnp.broadcast_to(
-                jnp.eye(D, dtype=A.dtype)[..., None], (D, D, Cp - C))
-            A_T = jnp.concatenate([A_T, pad_eye], axis=-1)
-            b_T = jnp.pad(b_T, ((0, 0), (0, Cp - C)))
-            z_T = jnp.pad(z_T, ((0, 0), (0, Cp - C)))
-        mean_T, noise_T = pk.chol_solve_batch_minor(A_T, b_T, z_T)
-        mean = jnp.moveaxis(mean_T[:, :C], -1, 0)
-        noise = jnp.moveaxis(noise_T[:, :C], -1, 0)
-        return (mean, noise), (True, True)
-    # Beyond the Pallas VMEM gate (e.g. config 4's 256-dim joint xi draw):
-    # stock Cholesky + blocked substitution.  blocked_cholesky was
-    # measured ~5x faster at (batch 256, D 96) but 35% SLOWER at the
-    # config-4 operating point (batch 4-16, D 256): its ~NB^2/2 small
-    # sequential panel ops cost more latency than the stock while-loop
-    # amortizes over a large batch (BENCH_SUITE.md round-5 suite notes).
-    L = jnp.linalg.cholesky(A)
-    m, n = blocked_tri_solves(L, b, z)
-    return (m, n), (True, True)
-
-
 def mvn_from_precision_fused(key, A, b, *, jitter=1e-6):
     """Sample N(A^{-1} b, A^{-1}) with the same diagonal-jitter contract as
-    distributions.chol_precision; (sample, mean).  Dispatches the whole
-    factor+solve pipeline through precision_draw_pair so the chain-vmapped
-    caller hits the fused Pallas path on TPU."""
+    distributions.chol_precision; (sample, mean)."""
     D = A.shape[-1]
     scale = jnp.trace(A, axis1=-2, axis2=-1) / D + 1.0
     Aj = A + (jitter * scale)[..., None, None] * jnp.eye(D, dtype=A.dtype)
@@ -338,16 +255,10 @@ def small_chol_logdet(L):
 # ---------------------------------------------------------------------------
 # Entries interface — small-matrix linalg WITHOUT the (.., M, M) tensor.
 #
-# Round-5 finding (benchmarks/op_census.py; the phi_chi/z_chi cost study in
-# BENCH_SUITE.md): even with the entrywise-unrolled small_chol, the mere
-# MATERIALIZATION of a trailing-(M, M) tensor is the cost — a
-# (chains, N, 4, 4) f32 C matrix tiles to (.., 8, 128) vregs, a 32x HBM
-# write/read blowup (105 MB for the headline shapes), paid by every einsum
-# that produces it and every slice that reads it.  These helpers take and
-# return the M(M+1)/2 entries as SEPARATE (batch...)-shaped arrays, so the
-# packed layout never exists; callers build each entry with one tiny
-# contraction.  Arithmetic is identical to small_chol/small_solve_* —
-# value-equivalence is covered by tests/test_linalg.py.
+# These helpers take and return the M(M+1)/2 entries as SEPARATE
+# (batch...)-shaped arrays, so no packed trailing-(M, M) tensor is ever
+# materialized; callers build each entry with one tiny contraction.
+# Arithmetic is identical to small_chol/small_solve_*.
 # ---------------------------------------------------------------------------
 
 

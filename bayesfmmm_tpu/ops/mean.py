@@ -8,7 +8,7 @@ The model mean (README.md:14):
 The reference recomputes scalar dot products of this expression inside
 quadruple loops in every updater (e.g. UpdateNu.h:42-63, UpdatePhi.h:44-71).
 
-TPU-native key identity: the whole bracket collapses to ONE P-vector per
+Key identity: the whole bracket collapses to ONE P-vector per
 observation,
 
     w_n = sum_k Z_nk [ nu_k + eta_k x_n + (Phi_k + xi_k x_n) chi_n ],
@@ -18,7 +18,7 @@ the naive design-product materialization B·Phi of shape (N, L, K, M) costs
 O(N·L·P·K·M) FLOPs and HBM traffic and is never needed.  When D == 0 the
 eta/xi einsums contract over an empty axis and vanish for free.
 
-Second TPU-native identity (Gram space): every Gibbs conditional only needs
+Second identity (Gram space): every Gibbs conditional only needs
 residuals through B_n' r_n and ||r_n||^2, and with the precomputed
 sufficient statistics u_n = B_n'y_n, G_n = B_n'B_n, yy_n = ||y_n||^2
 (models/state.py) these are
@@ -38,12 +38,13 @@ terms stay in Gram space, squared norms go through the residual.
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+
+from bayesfmmm_tpu.utils.pytree import pytree_dataclass
 
 _EINSUM_KW = dict(precision="highest")
 
 
-@struct.dataclass
+@pytree_dataclass
 class SweepCache:
     """Running effective mean coefficients, maintained through a sweep.
 
@@ -70,10 +71,6 @@ def compute_mu(data, state):
     w = effective_coeffs(state, data.X)
     if getattr(data, "identity_basis", False):
         return w                               # B = I, L = P
-    from bayesfmmm_tpu.ops import pallas_kernels
-    if pallas_kernels.use_pallas():
-        mu, _ = pallas_kernels.fused_mean_rss(data.B, w, data.y)
-        return mu
     return jnp.einsum("nlp,np->nl", data.B, w, **_EINSUM_KW)
 
 
@@ -93,10 +90,6 @@ def rss_from_coeffs(data, w):
     if getattr(data, "identity_basis", False):
         r = data.y - w
         return jnp.sum(r * r)
-    from bayesfmmm_tpu.ops import pallas_kernels
-    if pallas_kernels.use_pallas():
-        _, rss = pallas_kernels.fused_mean_rss(data.B, w, data.y)
-        return rss
     r = data.y - jnp.einsum("nlp,np->nl", data.B, w, **_EINSUM_KW)
     return jnp.sum(r * r)
 

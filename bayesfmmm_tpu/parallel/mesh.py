@@ -2,7 +2,7 @@
 
 The reference is strictly single-threaded (SURVEY.md §2.2: OpenMP flags
 declared in src/Makevars:2-4 but zero pragma sites; restarts are serial,
-UserFunctions.cpp:311-325).  The TPU-native replacements:
+UserFunctions.cpp:311-325).  The replacements:
 
   * **Chain parallelism**: restarts/chains are a vmapped batch whose leading
     axis shards over the ``chains`` mesh axis.
@@ -10,7 +10,7 @@ UserFunctions.cpp:311-325).  The TPU-native replacements:
     Every likelihood/Gibbs reduction over observations (the einsum
     contractions over `n` in ops/gibbs.py) lowers to a partial sum + psum
     inserted automatically by GSPMD — the idiomatic XLA collective design:
-    annotate shardings, let the compiler place `psum`/`all-gather` on ICI.
+    annotate shardings, let the compiler place `psum`/`all-gather`.
   * **Multi-host**: `jax.distributed.initialize()` + the same mesh spanning
     all hosts; nothing else changes (see initialize_distributed).
 

@@ -2,7 +2,7 @@
 serial tempered transitions.
 
 The reference's tempered-transition ladder runs 2*N_t rungs sequentially
-inside one chain (BFMMM.h:780-865).  The idiomatic TPU equivalent
+inside one chain (BFMMM.h:780-865).  The idiomatic device-parallel equivalent
 (SURVEY.md §2.2) is replica exchange: R replicas at a geometric temperature
 ladder each run the *same* tempered Gibbs sweep concurrently (one vmapped
 batch, sharded over the mesh `chains` axis), and adjacent replicas

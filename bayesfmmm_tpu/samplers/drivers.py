@@ -1,6 +1,6 @@
 """MCMC drivers: the three-phase fitting pipeline, scan-based and chain-parallel.
 
-TPU-native replacement of the reference L3 driver layer (BFMMM.h): instead
+Replacement of the reference L3 driver layer (BFMMM.h): instead
 of a Python/C++ iteration loop mutating trace cubes, each phase is ONE jitted
 ``lax.scan`` whose carry is (state, rng) and whose stacked outputs are the
 thinned traces.  Multiple restarts ("n_try", UserFunctions.cpp:302-325) and
@@ -120,7 +120,7 @@ def run_chain(key, state, data, hp, c, *, sweep, n_iters, thin=1,
     """Scan `n_iters` sweeps, stacking every `thin`-th draw.
 
     Replaces the reference's ring-buffer + batch-save loop (BFMMM.h:205-271):
-    on TPU the trace lives in device memory as a stacked scan output and is
+    the trace lives in device memory as a stacked scan output and is
     offloaded by the caller.
     """
     use_tt = n_temp_trans and ladder is not None

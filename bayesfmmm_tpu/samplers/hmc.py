@@ -1,11 +1,11 @@
 """Gradient-based whole-model sampler: jittered HMC with adaptation.
 
-The TPU-first primary path (SURVEY.md §7 / BASELINE.json north star):
+The gradient-based primary path (SURVEY.md §7 / BASELINE.json north star):
 whole-model leapfrog on the unconstrained log-joint (models/logjoint.py),
 vmapped over chains.  Fixed-length trajectories with uniform length jitter
 (the ChEES-style compromise: no data-dependent tree recursion, so XLA gets
 a single static-shape program — unlike NUTS whose U-turn recursion defeats
-TPU pipelining; cf. PAPERS.md ChEES/SMC references).
+static pipelining; cf. PAPERS.md ChEES/SMC references).
 
 Warmup: dual-averaging step size (Nesterov/Hoffman-Gelman schedule, target
 acceptance 0.8) + Welford diagonal mass estimation, two phases:

@@ -1,43 +1,41 @@
 """Device-utilization accounting from XLA cost analysis.
 
-Round-1 VERDICT (weak #1): the bench reported ESS/s but never measured what
-fraction of the chip is used.  This module derives, for a compiled program
-and a measured wall time:
+This module derives, for a compiled program and a measured wall time:
 
   * achieved FLOP/s and HBM bytes/s (XLA ``cost_analysis`` estimates),
-  * utilization against the device's peak matmul FLOP/s and HBM bandwidth,
+  * utilization against the device's peak float32 FLOP/s and HBM bandwidth,
   * arithmetic intensity vs the roofline ridge point, and a latency-bound
     flag when BOTH utilizations are < 1% (the regime where per-op dispatch
     and serial dependencies, not compute or bandwidth, set the throughput —
-    the expected regime for small-P Gibbs sweeps; see BENCH_SUITE.md).
+    the expected regime for small-P Gibbs sweeps).
 
-Peak numbers are public spec-sheet values per device generation (bf16
-matmul peak; f32 runs below it, so ``util_flops`` is a lower bound).
+Peaks are NVIDIA's published data-sheet values for the H100 SXM (dense,
+without sparsity, at the full 700 W power limit): 989 TFLOP/s bf16 on the
+tensor cores, 67 TFLOP/s float32 outside them, 3.35 TB/s of HBM3.  The
+sampler computes in float32 at precision "highest", so its FLOP share is
+taken against the float32 rate.  A device missing from the table is an
+error, never a silent default.
 """
 
 from __future__ import annotations
 
-# device_kind substring -> (peak matmul FLOP/s (bf16), peak HBM bytes/s)
+# exact jax device_kind -> published peaks
 PEAKS = {
-    "v5 lite": (197.4e12, 819e9),
-    "v5e": (197.4e12, 819e9),
-    "v5p": (459e12, 2765e9),
-    "v6 lite": (918e12, 1638e9),
-    "v6e": (918e12, 1638e9),
-    "v4": (275e12, 1228e9),
-    "v3": (123e12, 900e9),
-    "v2": (46e12, 700e9),
+    "NVIDIA H100 80GB HBM3": dict(bf16_flops=989e12, f32_flops=67e12,
+                                  hbm_bytes_per_s=3.35e12),
 }
 
 
 def device_peaks(device=None):
+    """(device_kind, peaks dict) for ``device`` (default: first device);
+    raises KeyError for a device the table does not list."""
     import jax
     device = device or jax.devices()[0]
-    kind = getattr(device, "device_kind", "") or ""
-    for key, peaks in PEAKS.items():
-        if key in kind.lower():
-            return kind, peaks
-    return kind, (None, None)
+    kind = device.device_kind
+    if kind not in PEAKS:
+        raise KeyError(f"no published peaks for device_kind {kind!r}; "
+                       f"known: {sorted(PEAKS)}")
+    return kind, PEAKS[kind]
 
 
 def cost_stats(compiled, elapsed_s: float, *, flops=None, bytes_=None,
@@ -62,7 +60,8 @@ def cost_stats(compiled, elapsed_s: float, *, flops=None, bytes_=None,
         source = source or "xla_cost_analysis_UNSCALED"
     byts = bytes_ if bytes_ is not None \
         else float(ca.get("bytes accessed", 0.0) or 0.0)
-    kind, (peak_flops, peak_bw) = device_peaks()
+    kind, peaks = device_peaks()
+    peak_flops, peak_bw = peaks["f32_flops"], peaks["hbm_bytes_per_s"]
     achieved_flops = flops / elapsed_s if elapsed_s > 0 else 0.0
     achieved_bw = byts / elapsed_s if elapsed_s > 0 else 0.0
     out = {
@@ -73,13 +72,10 @@ def cost_stats(compiled, elapsed_s: float, *, flops=None, bytes_=None,
         "achieved_gflops": round(achieved_flops / 1e9, 2),
         "achieved_gbytes_per_s": round(achieved_bw / 1e9, 2),
         "arithmetic_intensity": round(flops / byts, 3) if byts else None,
+        "util_vs_f32_peak_pct": round(100.0 * achieved_flops / peak_flops, 4),
+        "util_vs_hbm_bw_pct": round(100.0 * achieved_bw / peak_bw, 3),
+        "roofline_ridge_flops_per_byte": round(peak_flops / peak_bw, 1),
     }
-    if peak_flops:
-        out["util_vs_bf16_peak_pct"] = round(
-            100.0 * achieved_flops / peak_flops, 4)
-        out["util_vs_hbm_bw_pct"] = round(100.0 * achieved_bw / peak_bw, 3)
-        out["roofline_ridge_flops_per_byte"] = round(peak_flops / peak_bw, 1)
-        out["latency_bound"] = bool(
-            out["util_vs_bf16_peak_pct"] < 1.0
-            and out["util_vs_hbm_bw_pct"] < 1.0)
+    out["latency_bound"] = bool(out["util_vs_f32_peak_pct"] < 1.0
+                                and out["util_vs_hbm_bw_pct"] < 1.0)
     return out

@@ -51,10 +51,8 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    cache = os.path.expanduser("~/.cache/jax_comp_cache")
-    os.makedirs(cache, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from bayesfmmm_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from bayesfmmm_tpu.config import ModelConfig, Priors
     from bayesfmmm_tpu.diagnostics import (rank_normalized_ess,

@@ -7,7 +7,7 @@ UpdateXi.h) depend on a design matrix X.  Here: simulate data whose mean
 and covariance both shift with a scalar covariate, fit the full 3-phase
 pipeline with covariate_cov=True, and read off the covariate effect.
 
-Run:  python examples/covariate_fit.py            (TPU if available)
+Run:  python examples/covariate_fit.py            (default JAX backend)
 """
 
 import numpy as np

@@ -4,7 +4,7 @@ Mirrors the reference's BFMMM_Nu_Z_multiple_try -> BFMMM_Theta_est ->
 BFMMM_warm_start example pipeline (UserFunctions.cpp:101-163) on simulated
 sample paths, then computes posterior summaries.
 
-Run:  python examples/functional_fit.py            (TPU if available)
+Run:  python examples/functional_fit.py            (default JAX backend)
       JAX_PLATFORMS=cpu + jax.config override for CPU-only boxes
 """
 

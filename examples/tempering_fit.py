@@ -15,11 +15,6 @@ equivalents:
 Run: python examples/tempering_fit.py            (CPU-friendly sizes)
 """
 
-import jax
-
-if jax.default_backend() not in ("tpu",):
-    jax.config.update("jax_platforms", "cpu")
-
 import numpy as np
 
 from bayesfmmm_tpu import api

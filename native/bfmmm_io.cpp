@@ -3,7 +3,7 @@
 // The reference's data plane is Armadillo ascii trace files written
 // synchronously from the sampling loop (BFMMM.h:1720-1730) and re-parsed by
 // every post-processing call (PostProcessing.cpp:144-162).  This library
-// provides the TPU-native equivalent of that data plane:
+// provides the accelerator-side equivalent of that data plane:
 //
 //   * fast ascii matrix parsing (strtod streaming, ~10x Python's loadtxt)
 //   * fast ascii writers

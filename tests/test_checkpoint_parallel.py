@@ -55,6 +55,26 @@ def test_checkpoint_exact_resume(tmp_path):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-6)
 
 
+def test_npz_checkpoint_round_trip_without_orbax(tmp_path, monkeypatch):
+    """The checkpoint is plain npz: exact round trip with orbax absent,
+    and a path without the suffix gets '.npz' appended."""
+    import sys
+    monkeypatch.setitem(sys.modules, "orbax", None)
+    monkeypatch.setitem(sys.modules, "orbax.checkpoint", None)
+    data, cfg = _small()
+    keys = jax.random.split(jax.random.PRNGKey(9), 3)
+    states = jax.vmap(lambda k: init_state(k, cfg, data))(keys)
+    save_checkpoint(str(tmp_path / "ens"), states, keys, iteration=12)
+    assert (tmp_path / "ens.npz").is_file()
+    back, kb, it = load_checkpoint(str(tmp_path / "ens"))
+    assert it == 12
+    np.testing.assert_array_equal(np.asarray(jax.random.key_data(kb)),
+                                  np.asarray(keys))
+    for a, b in zip(jax.tree.leaves(states), jax.tree.leaves(back)):
+        assert a.shape == b.shape
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
 def test_sharded_chains_match_unsharded():
     """The (chains, data) mesh execution computes the same draws as
     unsharded vmap — GSPMD must only change placement, not values."""

@@ -76,8 +76,7 @@ def test_small_chol_and_solves(M):
 
 
 def test_precision_draw_pair_vmapped_matches_reference():
-    """The custom_vmap rule (XLA fallback on CPU) must equal the stock
-    batched factor+solve."""
+    """The chain-vmapped draw must equal the stock batched factor+solve."""
     key = jax.random.PRNGKey(2)
     A = _spd(key, (9,), 48)
     b = jax.random.normal(jax.random.fold_in(key, 1), (9, 48))
@@ -89,9 +88,8 @@ def test_precision_draw_pair_vmapped_matches_reference():
 
 
 def test_precision_draw_pair_large_d_blocked_path():
-    """D=256 (config 4's joint xi dimension) exceeds the Pallas gate and
-    must route through blocked_cholesky + blocked substitution — value-
-    equivalent to the stock pipeline (round-4 VERDICT #3)."""
+    """D=256 (config 4's joint xi dimension) through the blocked
+    substitution — value-equivalent to the stock pipeline."""
     key = jax.random.PRNGKey(6)
     A = _spd(key, (3,), 256, diag=40.0)
     b = jax.random.normal(jax.random.fold_in(key, 1), (3, 256))
@@ -100,25 +98,6 @@ def test_precision_draw_pair_large_d_blocked_path():
     mean_ref, noise_ref = _ref_solves(A, b, z)
     np.testing.assert_allclose(mean, mean_ref, atol=5e-5)
     np.testing.assert_allclose(noise, noise_ref, atol=5e-4)
-
-
-def test_pallas_chol_solve_kernel_interpret():
-    """The Pallas batch-minor kernel itself, in interpret mode (runs
-    everywhere): exactness vs the stock pipeline, including lane padding."""
-    from bayesfmmm_tpu.ops.pallas_kernels import chol_solve_batch_minor
-    key = jax.random.PRNGKey(4)
-    C, D = 128, 48
-    A = _spd(key, (C,), D)
-    b = jax.random.normal(jax.random.fold_in(key, 1), (C, D))
-    z = jax.random.normal(jax.random.fold_in(key, 2), (C, D))
-    mean_T, noise_T = chol_solve_batch_minor(
-        jnp.moveaxis(A, 0, -1), jnp.moveaxis(b, 0, -1),
-        jnp.moveaxis(z, 0, -1))
-    mean_ref, noise_ref = _ref_solves(A, b, z)
-    np.testing.assert_allclose(jnp.moveaxis(mean_T, -1, 0), mean_ref,
-                               atol=5e-5)
-    np.testing.assert_allclose(jnp.moveaxis(noise_T, -1, 0), noise_ref,
-                               atol=5e-4)
 
 
 def test_mvn_from_precision_fused_moments():
